@@ -1,7 +1,7 @@
 """Convert the reference demo geometry (cornell.obj, suzanne.obj —
 project/demo/geometry/, wired into the demo at demo.tscn:69-93) into the
 packed npz asset shipped with the package
-(gdpathtracing_tpu/scene/data/demo_geometry.npz).
+(gdpathtracing/scene/data/demo_geometry.npz).
 
 The npz stores, per mesh, the per-surface triangle arrays produced by
 scene.objloader.load_obj (positions/normals/uvs per surface) — pure
@@ -22,9 +22,9 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from gdpathtracing_tpu.scene.objloader import load_obj  # noqa: E402
+from gdpathtracing.scene.objloader import load_obj  # noqa: E402
 
-OUT = (Path(__file__).resolve().parents[1] / "gdpathtracing_tpu" / "scene"
+OUT = (Path(__file__).resolve().parents[1] / "gdpathtracing" / "scene"
        / "data" / "demo_geometry.npz")
 
 

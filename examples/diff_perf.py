@@ -1,6 +1,6 @@
-"""Differentiable-path perf (VERDICT r4 item 5): frame times for the
-fused vs unfused differentiable NEE render and the soft (silhouette
-gradient) estimators at full resolution.
+"""Differentiable-path perf: fwd+bwd frame times of the differentiable
+render with and without NEE and with the soft (silhouette gradient)
+estimators at full resolution.
 
     python -u examples/diff_perf.py [--res 1080] [--frames 3]
 """
@@ -16,11 +16,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gdpathtracing_tpu.render import integrator as integ
-from gdpathtracing_tpu.config import RenderConfig, Traversal
-from gdpathtracing_tpu.diff.inverse import image_mse, replace_albedo
-from gdpathtracing_tpu.render.renderer import render_radiance
-from gdpathtracing_tpu.scene.demo import build_demo_scene, demo_camera
+from gdpathtracing.config import RenderConfig, Traversal
+from gdpathtracing.diff.inverse import image_mse, replace_albedo
+from gdpathtracing.render.renderer import render_radiance
+from gdpathtracing.scene.demo import build_demo_scene, demo_camera
 
 
 def time_bwd(scene, cam, cfg, frames, label):
@@ -60,12 +59,7 @@ def main():
                         differentiable=True)
 
     time_bwd(scene, cam, base, args.frames, "diff (no NEE)")
-    time_bwd(scene, cam, base.replace(nee=True), args.frames,
-             "diff NEE fused (r5 default)")
-    integ._FORCE_UNFUSED_NEE = True
-    time_bwd(scene, cam, base.replace(nee=True), args.frames,
-             "diff NEE unfused (r4 path)")
-    integ._FORCE_UNFUSED_NEE = False
+    time_bwd(scene, cam, base.replace(nee=True), args.frames, "diff NEE")
     time_bwd(scene, cam, base.replace(soft_shadows=0.02, nee=True),
              args.frames, "diff NEE + soft_shadows (silhouette)")
     time_bwd(scene, cam, base.replace(soft_primary=0.02), args.frames,

@@ -3,7 +3,7 @@ from a target image by gradient descent through the renderer.
 
 Renders the Cornell demo with its true albedos as the target, perturbs the
 albedos, then optimizes them back with Adam. No reference counterpart —
-this is a capability the TPU-native design adds.
+this is a capability the differentiable design adds.
 
 Usage: python examples/inverse_render.py [--steps 60] [--res 64]
 """
@@ -32,11 +32,11 @@ def main() -> None:
     import jax.numpy as jnp
     import optax
 
-    from gdpathtracing_tpu.config import Jitter, RenderConfig, Traversal
-    from gdpathtracing_tpu.diff.inverse import (render_loss, replace_albedo,
+    from gdpathtracing.config import Jitter, RenderConfig, Traversal
+    from gdpathtracing.diff.inverse import (render_loss, replace_albedo,
                                                 unbiased_mse_value_and_grad)
-    from gdpathtracing_tpu.render.renderer import render_radiance
-    from gdpathtracing_tpu.scene.demo import build_cornell_simple, demo_camera
+    from gdpathtracing.render.renderer import render_radiance
+    from gdpathtracing.scene.demo import build_cornell_simple, demo_camera
 
     cfg = RenderConfig(bounces=args.bounces, spp=args.spp_opt,
                        traversal=Traversal.UNIT, jitter=Jitter.NONE)

@@ -1,11 +1,10 @@
 """Multi-HOST (multi-process) smoke test on the CPU backend.
 
 parallel/sharding.py documents that the same mesh code spans hosts once
-``jax.distributed.initialize`` has run; nothing in this environment has
-real multi-host TPU hardware, so this script verifies the claim the way
-JAX itself tests it: two local PROCESSES, each contributing 2 virtual CPU
-devices to one 4-device global mesh (coordinator + gloo collectives over
-loopback — the DCN stand-in). It then renders a small demo frame through
+``jax.distributed.initialize`` has run; this script verifies the claim
+without several hosts, the way JAX itself tests it: two local PROCESSES,
+each contributing 2 virtual CPU devices to one 4-device global mesh
+(coordinator + gloo collectives over loopback — the network stand-in). It then renders a small demo frame through
 ``render_radiance_sharded`` on the global mesh and bit-compares every
 locally-addressable shard against a process-local unsharded render
 (SURVEY.md §4f determinism bar: sharding must never change pixels).
@@ -44,7 +43,7 @@ def worker(pid: int, port: int) -> None:
 
     # Cross-process collective sanity: psum over the global mesh.
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from gdpathtracing_tpu.parallel.sharding import (AXIS, make_mesh,
+    from gdpathtracing.parallel.sharding import (AXIS, make_mesh,
                                                      render_radiance_sharded)
     mesh = make_mesh()
     one = jax.device_put(
@@ -53,8 +52,8 @@ def worker(pid: int, port: int) -> None:
     total = jax.jit(lambda x: x.sum())(one)
     assert float(total) == len(devs), float(total)
 
-    from gdpathtracing_tpu.config import RenderConfig, Traversal
-    from gdpathtracing_tpu.scene.demo import build_demo_scene, demo_camera
+    from gdpathtracing.config import RenderConfig, Traversal
+    from gdpathtracing.scene.demo import build_demo_scene, demo_camera
 
     scene = build_demo_scene(texture_resolution=4, sphere_detail=4,
                              geometry="sphere")
@@ -69,7 +68,7 @@ def worker(pid: int, port: int) -> None:
     rad = aovs.radiance  # (H, W, 3) globally sharded
 
     # Process-local unsharded reference (single device 0 of this process).
-    from gdpathtracing_tpu.render.renderer import render_radiance
+    from gdpathtracing.render.renderer import render_radiance
     ref = np.asarray(jax.jit(
         lambda s, c: render_radiance(s, c, config, 0).radiance,
         device=jax.local_devices()[0])(scene, camera))
@@ -88,14 +87,14 @@ def worker(pid: int, port: int) -> None:
     print(f"worker {pid}: {len(rad.addressable_shards)} shards bit-match "
           f"(allclose 1e-5) the unsharded render ok", flush=True)
 
-    # Gradient parity across PROCESSES (VERDICT r4 item 7): one
+    # Gradient parity across PROCESSES: one
     # value_and_grad step of a differentiable sharded render w.r.t. the
     # replicated albedo table. The shard_map transpose inserts the psum
     # over the 2-process gloo mesh — the first time the cross-process
     # all-reduce carries gradients in this harness. The reduced gradient
     # is replicated, so every process compares its full copy against a
     # process-local single-device gradient.
-    from gdpathtracing_tpu.diff.inverse import image_mse, replace_albedo
+    from gdpathtracing.diff.inverse import image_mse, replace_albedo
     dcfg = config.replace(differentiable=True)
     target = jnp.zeros((camera.height, camera.width, 3), jnp.float32)
 

@@ -1,7 +1,7 @@
-"""TPU validation of the path-regeneration frame loop (render/regen.py):
-render one demo frame with the standard per-bounce loop and one with
-regeneration, compare pixels, and report. Small resolution first (cheap
-compile, catches runtime-bug-class failures before 1080p).
+"""On-device validation of the path-regeneration frame loop
+(render/regen.py): render one demo frame with the standard per-bounce loop
+and one with regeneration, compare pixels, and report. Small resolution
+first (cheap compile) before 1080p.
 
 Run: python -u examples/regen_check.py [--res 512] [--nee]
 """
@@ -18,9 +18,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import jax
 import numpy as np
 
-from gdpathtracing_tpu.config import RenderConfig, Traversal
-from gdpathtracing_tpu.render.renderer import render_radiance
-from gdpathtracing_tpu.scene.demo import build_demo_scene, demo_camera
+from gdpathtracing.config import RenderConfig, Traversal
+from gdpathtracing.render.renderer import render_radiance
+from gdpathtracing.scene.demo import build_demo_scene, demo_camera
 
 
 def main():

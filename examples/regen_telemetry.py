@@ -1,9 +1,9 @@
-"""Regen block-composition telemetry (VERDICT r4 item 1 diagnosis).
+"""Regen occupancy telemetry.
 
 Renders one frame through render_radiance_regen(return_stats=True) and
-prints the per-iteration table: live lanes, phase-A/B block sweeps taken
-(kernel rows 46/47), sweeps per block, and the implied per-iteration
-trace-cost model. Run ON TPU from the repo root:
+prints the per-iteration table: live lanes and the triangles the trace
+kernel swept for them (from its steps output). Run on the GPU from the
+repo root:
 
     python -u examples/regen_telemetry.py --res 1080 [--scene grid]
         [--nee] [--nw 524288] [--sort-key chunk] [--no-sort]
@@ -19,9 +19,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import jax
 import numpy as np
 
-from gdpathtracing_tpu.config import RenderConfig, Traversal
-from gdpathtracing_tpu.render.regen import render_radiance_regen
-from gdpathtracing_tpu.scene.demo import (build_demo_scene, demo_camera,
+from gdpathtracing.config import RenderConfig, Traversal
+from gdpathtracing.render.regen import render_radiance_regen
+from gdpathtracing.scene.demo import (build_demo_scene, demo_camera,
                                           build_sphere_grid, grid_camera)
 
 
@@ -74,17 +74,13 @@ def main():
 
     iters = int(np.asarray(stats["iters"]))
     alive = np.asarray(stats["it_alive"])[:iters]
-    swa = np.asarray(stats["it_sweeps_a"])[:iters]
-    swb = np.asarray(stats["it_sweeps_b"])[:iters]
-    nb = stats["n_blocks"]
-    print(f"iters={iters} n_blocks={nb} nw={args.nw}")
-    print("  it   alive%   sweepsA  A/blk   sweepsB  B/blk")
+    steps = np.asarray(stats["it_steps"])[:iters]
+    print(f"iters={iters} nw={args.nw}")
+    print("  it   alive%   tri-tests/live-lane")
     for i in range(iters):
-        print(f"  {i:3d}  {100*alive[i]/args.nw:6.1f}  {swa[i]:8.0f} "
-              f"{swa[i]/nb:6.2f}  {swb[i]:8.0f} {swb[i]/nb:6.2f}")
-    tot = swa.sum() + swb.sum()
-    print(f"total sweeps: {tot:.0f} ({tot/nb/max(iters,1):.2f}/blk/iter); "
-          f"sweep-model cost @1.8us = {tot*1.8e-3:.1f} ms")
+        print(f"  {i:3d}  {100*alive[i]/args.nw:6.1f}  "
+              f"{steps[i]/max(alive[i], 1):10.1f}")
+    print(f"total triangle tests: {steps.sum():.0f}")
 
 
 if __name__ == "__main__":

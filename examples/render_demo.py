@@ -51,9 +51,9 @@ def main() -> None:
     ap.add_argument("--out", default="out/demo.png")
     args = ap.parse_args()
 
-    from gdpathtracing_tpu import Engine, RenderConfig
-    from gdpathtracing_tpu.config import Traversal
-    from gdpathtracing_tpu.scene.demo import build_demo_scene, demo_camera
+    from gdpathtracing import Engine, RenderConfig
+    from gdpathtracing.config import Traversal
+    from gdpathtracing.scene.demo import build_demo_scene, demo_camera
 
     print("building scene...")
     scene = build_demo_scene(texture_resolution=64, sphere_detail=16)

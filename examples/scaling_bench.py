@@ -1,8 +1,8 @@
 """Scaling-efficiency sweep (BASELINE: ≥80% rays/s efficiency).
 
 Renders the same frame on meshes of 1, 2, 4, … devices and reports rays/s
-scaling efficiency. On a real pod slice this measures ICI scaling; on the
-virtual CPU mesh (default in this container) it validates the mechanism.
+scaling efficiency. On several GPUs this measures NVLink-connected
+scaling; on a virtual CPU mesh it validates the mechanism.
 
 Usage:  python examples/scaling_bench.py [--res 512] [--devices 8]
 """
@@ -40,10 +40,10 @@ def main() -> None:
 
     import numpy as np
 
-    from gdpathtracing_tpu.config import RenderConfig, Traversal
-    from gdpathtracing_tpu.parallel.sharding import (make_mesh,
+    from gdpathtracing.config import RenderConfig, Traversal
+    from gdpathtracing.parallel.sharding import (make_mesh,
                                                      render_radiance_sharded)
-    from gdpathtracing_tpu.scene.demo import build_demo_scene, demo_camera
+    from gdpathtracing.scene.demo import build_demo_scene, demo_camera
 
     max_dev = args.devices or len(devices)
     scene = build_demo_scene(texture_resolution=8, sphere_detail=8, geometry="sphere")

@@ -1,6 +1,6 @@
-"""On-chip sharded validation (VERDICT r2 item 7): compile and run the
-REAL shard_map + Mosaic PALLAS path on the TPU with a 1-device mesh and
-assert bit-equality against the unsharded render.
+"""On-device sharded validation: compile and run the real shard_map +
+PALLAS path on the accelerator with a 1-device mesh and assert
+bit-equality against the unsharded render.
 
 The CPU-mesh tests (tests/test_sharding.py) exercise the same code in
 interpret mode only; this script is the missing "a compiled
@@ -33,11 +33,11 @@ def main() -> None:
     import jax.numpy as jnp
     import numpy as np
 
-    from gdpathtracing_tpu.config import RenderConfig, Traversal, Jitter
-    from gdpathtracing_tpu.parallel.sharding import (make_mesh,
+    from gdpathtracing.config import RenderConfig, Traversal, Jitter
+    from gdpathtracing.parallel.sharding import (make_mesh,
                                                      render_radiance_sharded)
-    from gdpathtracing_tpu.render.renderer import render_radiance
-    from gdpathtracing_tpu.scene.demo import build_demo_scene, demo_camera
+    from gdpathtracing.render.renderer import render_radiance
+    from gdpathtracing.scene.demo import build_demo_scene, demo_camera
 
     devs = jax.devices()
     print(f"devices: {devs}", flush=True)
@@ -58,7 +58,7 @@ def main() -> None:
     sh = jax.jit(lambda f: render_radiance_sharded(scene, cam, cfg, f,
                                                    mesh))(3)
     sh_rad = np.asarray(sh.radiance)
-    print(f"sharded (1-dev mesh, compiled Mosaic) compile+run: "
+    print(f"sharded (1-dev mesh) compile+run: "
           f"{time.time() - t0:.1f}s", flush=True)
 
     np.testing.assert_array_equal(sh_rad, base_rad)
@@ -70,7 +70,7 @@ def main() -> None:
           f"on {devs[0]}", flush=True)
 
     if args.diff:
-        from gdpathtracing_tpu.diff.inverse import image_mse, replace_albedo
+        from gdpathtracing.diff.inverse import image_mse, replace_albedo
         dcfg = cfg.replace(differentiable=True, bounces=2)
         target = jnp.zeros((args.res, args.res, 3), jnp.float32)
 

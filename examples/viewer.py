@@ -93,7 +93,7 @@ class FlyCamera:
         return False
 
     def camera(self, width: int, height: int, fov_deg: float = 79.5):
-        from gdpathtracing_tpu.render.camera import Camera
+        from gdpathtracing.render.camera import Camera
         return Camera.looking_at(tuple(self.eye),
                                  tuple(self.eye + self.forward()),
                                  fov_deg=fov_deg, width=width, height=height)
@@ -130,9 +130,9 @@ def main() -> None:
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
-    from gdpathtracing_tpu import Engine, RenderConfig
-    from gdpathtracing_tpu.config import DenoisingMode, Traversal
-    from gdpathtracing_tpu.scene.demo import build_demo_scene
+    from gdpathtracing import Engine, RenderConfig
+    from gdpathtracing.config import DenoisingMode, Traversal
+    from gdpathtracing.scene.demo import build_demo_scene
 
     scene = build_demo_scene(texture_resolution=32, sphere_detail=12)
     config = RenderConfig(

@@ -1,11 +1,11 @@
 // Native binned-SAH BLAS builder — C++ core of the scene compiler.
 //
 // Same algorithm and decision points as the Python reference implementation
-// (gdpathtracing_tpu/bvh/blas.py), which itself re-expresses the semantics
+// (gdpathtracing/bvh/blas.py), which itself re-expresses the semantics
 // of the reference's C++ builder (src/bvh/bvh.cpp:24-262): top-down, 8-bin
 // SAH over 3 axes, 0.8 cost slack, stable-median fallback, <=max_leaf
 // leaves, identical node-index allocation order. Exposed through a C ABI
-// consumed via ctypes (gdpathtracing_tpu/bvh/native.py).
+// consumed via ctypes (gdpathtracing/bvh/native.py).
 //
 // Determinism contract with the Python builder: float32 centroids/bounds,
 // float64 SAH arithmetic, identical bin index computation, stable sort for

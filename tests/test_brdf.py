@@ -4,9 +4,9 @@ sampling/eval consistency (white furnace), energy conservation."""
 import numpy as np
 import jax.numpy as jnp
 
-from gdpathtracing_tpu.core.vec import Vec3
-from gdpathtracing_tpu.render import brdf
-from gdpathtracing_tpu.render.types import ShadingInfo
+from gdpathtracing.core.vec import Vec3
+from gdpathtracing.render import brdf
+from gdpathtracing.render.types import ShadingInfo
 
 N = 200_000
 

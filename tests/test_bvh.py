@@ -3,8 +3,8 @@ permutation property, TLAS coverage."""
 
 import numpy as np
 
-from gdpathtracing_tpu.bvh.blas import BLASBuilder, Surface, validate_blas
-from gdpathtracing_tpu.bvh.tlas import build_tlas, instance_world_aabb
+from gdpathtracing.bvh.blas import BLASBuilder, Surface, validate_blas
+from gdpathtracing.bvh.tlas import build_tlas, instance_world_aabb
 
 
 def _random_surface(rs, n_tris, scale=1.0, offset=0.0):

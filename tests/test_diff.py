@@ -9,13 +9,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gdpathtracing_tpu.config import Jitter, RenderConfig, Traversal
-from gdpathtracing_tpu.diff.inverse import (render_loss, replace_albedo,
+from gdpathtracing.config import Jitter, RenderConfig, Traversal
+from gdpathtracing.diff.inverse import (render_loss, replace_albedo,
                                             replace_camera_transform,
                                             replace_emission,
                                             replace_vertices)
-from gdpathtracing_tpu.render.renderer import render_radiance
-from gdpathtracing_tpu.scene.demo import build_cornell_simple, demo_camera
+from gdpathtracing.render.renderer import render_radiance
+from gdpathtracing.scene.demo import build_cornell_simple, demo_camera
 
 CFG = RenderConfig(bounces=2, spp=1, traversal=Traversal.BRUTE,
                    jitter=Jitter.NONE)
@@ -81,7 +81,7 @@ def test_vertex_and_camera_gradients_finite():
     # the flat-shaded box has none (normals constant per face, visibility
     # discrete), but the demo spheres' interpolated normals vary with the
     # barycentrics, which vary with the vertices.
-    from gdpathtracing_tpu.scene.demo import build_demo_scene
+    from gdpathtracing.scene.demo import build_demo_scene
     scene = build_demo_scene(texture_resolution=4, sphere_detail=4, geometry="sphere")
     cam = demo_camera(16, 16)
 
@@ -124,7 +124,7 @@ def test_unbiased_mse_grad_converges_from_perturbation():
     single-sample MSE gradient provably diverges here — the estimator-
     variance term; see diff/inverse.py)."""
     import optax
-    from gdpathtracing_tpu.diff.inverse import unbiased_mse_value_and_grad
+    from gdpathtracing.diff.inverse import unbiased_mse_value_and_grad
 
     cfg = RenderConfig(bounces=2, spp=4, traversal=Traversal.UNIT,
                        jitter=Jitter.NONE)
@@ -158,8 +158,8 @@ def test_unbiased_mse_grad_converges_from_perturbation():
     assert err1.max() < 0.3, err1.max(axis=1)
 
 
-def test_pallas_vertex_gradient_matches_fd(monkeypatch):
-    """VERDICT r2 item 5: vertex gradients through the FAST path.
+def test_pallas_vertex_gradient_matches_fd():
+    """Vertex gradients through the FAST path.
     replace_vertices rebuilds the isect tables in-graph
     (scene/dynamic.update_vertices), so trace_pallas_diff's recompute
     epilogue — t, u, v from isect_cols — is a differentiable function of
@@ -170,9 +170,7 @@ def test_pallas_vertex_gradient_matches_fd(monkeypatch):
     the detached default is a different — also unbiased — estimator that
     only agrees in expectation). Silhouette pixels are excluded from the
     loss (hard visibility flips are the known-unmodeled term)."""
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    monkeypatch.setattr(ip, "_FORCE_INTERPRET", True)
-    from gdpathtracing_tpu.scene.demo import build_demo_scene
+    from gdpathtracing.scene.demo import build_demo_scene
 
     scene = build_demo_scene(texture_resolution=4, sphere_detail=6,
                              geometry="sphere")
@@ -231,15 +229,13 @@ def test_pallas_vertex_gradient_matches_fd(monkeypatch):
     assert sum(r < 0.10 for r in good) >= checked - 1, rels
 
 
-def test_pallas_diff_gradient_matches_fd(monkeypatch):
-    """VERDICT r1 item 3: the PALLAS path must be differentiable. With
+def test_pallas_diff_gradient_matches_fd():
+    """The PALLAS path must be differentiable. With
     config.differentiable the kernel becomes a primal hit-finder and the
     hit record is recomputed differentiably (trace_pallas_diff); the
     per-bounce loop is jax.checkpoint'ed. FD-match albedo gradients against
     the kernel-traced render, and check the primal value is unchanged."""
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    monkeypatch.setattr(ip, "_FORCE_INTERPRET", True)
-    from gdpathtracing_tpu.scene.demo import build_demo_scene
+    from gdpathtracing.scene.demo import build_demo_scene
 
     scene = build_demo_scene(texture_resolution=4, sphere_detail=6,
                              geometry="sphere")
@@ -279,14 +275,12 @@ def test_pallas_diff_gradient_matches_fd(monkeypatch):
         assert checked >= 2, f"nee={nee}"
 
 
-def test_bwd_checkpoint_paths_agree_and_auto_resolves(monkeypatch):
+def test_bwd_checkpoint_paths_agree_and_auto_resolves():
     """config.bwd_checkpoint True / False / None (shape-aware auto) must
     produce identical losses and gradients — the auto rule only trades
-    backward memory for recompute (VERDICT r4 item 4). Also pins the
+    backward memory for recompute. Also pins the
     auto threshold arithmetic: small frames resolve to False, frames
     whose estimated residuals exceed the budget resolve to True."""
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    monkeypatch.setattr(ip, "_FORCE_INTERPRET", True)
     scene = build_cornell_simple()
     cam = demo_camera(RES, RES)
     base = RenderConfig(bounces=2, spp=1, traversal=Traversal.PALLAS,

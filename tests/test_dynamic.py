@@ -5,12 +5,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gdpathtracing_tpu.core.vec import Vec3
-from gdpathtracing_tpu.render.intersect import trace_brute, trace_unit
-from gdpathtracing_tpu.render.traverse import trace_bvh
-from gdpathtracing_tpu.render.types import Ray
-from gdpathtracing_tpu.scene.demo import build_demo_scene
-from gdpathtracing_tpu.scene.dynamic import (refit_blas,
+from gdpathtracing.core.vec import Vec3
+from gdpathtracing.render.intersect import trace_brute, trace_unit
+from gdpathtracing.render.traverse import trace_bvh
+from gdpathtracing.render.types import Ray
+from gdpathtracing.scene.demo import build_demo_scene
+from gdpathtracing.scene.dynamic import (refit_blas,
                                              update_instance_transforms,
                                              update_vertices)
 

@@ -3,13 +3,13 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gdpathtracing_tpu import Engine, RenderConfig
-from gdpathtracing_tpu.config import DenoisingMode, Traversal
-from gdpathtracing_tpu.post.checkpoint import load_state, save_state
-from gdpathtracing_tpu.post.progressive import ProgressiveState
-from gdpathtracing_tpu.render.renderer import render_radiance
-from gdpathtracing_tpu.scene.demo import build_cornell_simple, demo_camera
-from gdpathtracing_tpu.utils.stats import frame_stats, steps_heatmap
+from gdpathtracing import Engine, RenderConfig
+from gdpathtracing.config import DenoisingMode, Traversal
+from gdpathtracing.post.checkpoint import load_state, save_state
+from gdpathtracing.post.progressive import ProgressiveState
+from gdpathtracing.render.renderer import render_radiance
+from gdpathtracing.scene.demo import build_cornell_simple, demo_camera
+from gdpathtracing.utils.stats import frame_stats, steps_heatmap
 
 CFG = RenderConfig(bounces=2, spp=1, traversal=Traversal.UNIT)
 

@@ -7,13 +7,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gdpathtracing_tpu.config import Jitter, RenderConfig, Traversal
-from gdpathtracing_tpu.parallel.fault import (inject_tile_fault,
+from gdpathtracing.config import Jitter, RenderConfig, Traversal
+from gdpathtracing.parallel.fault import (inject_tile_fault,
                                               redundancy_probe,
                                               render_with_retry,
                                               tile_health)
-from gdpathtracing_tpu.render.renderer import render_radiance
-from gdpathtracing_tpu.scene.demo import build_demo_scene, demo_camera
+from gdpathtracing.render.renderer import render_radiance
+from gdpathtracing.scene.demo import build_demo_scene, demo_camera
 
 TILE = 16
 

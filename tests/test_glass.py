@@ -4,14 +4,14 @@ conservation through glass, see-through behavior, Fresnel math."""
 import numpy as np
 import jax.numpy as jnp
 
-from gdpathtracing_tpu.config import Jitter, RenderConfig, Traversal
-from gdpathtracing_tpu.render.brdf import fresnel_dielectric, refract
-from gdpathtracing_tpu.core.vec import Vec3
-from gdpathtracing_tpu.render.renderer import render_radiance
-from gdpathtracing_tpu.render.camera import Camera
-from gdpathtracing_tpu.scene.materials import Material
-from gdpathtracing_tpu.scene.primitives import uv_sphere, quad_ccw
-from gdpathtracing_tpu.scene.scene import SceneBuilder
+from gdpathtracing.config import Jitter, RenderConfig, Traversal
+from gdpathtracing.render.brdf import fresnel_dielectric, refract
+from gdpathtracing.core.vec import Vec3
+from gdpathtracing.render.renderer import render_radiance
+from gdpathtracing.render.camera import Camera
+from gdpathtracing.scene.materials import Material
+from gdpathtracing.scene.primitives import uv_sphere, quad_ccw
+from gdpathtracing.scene.scene import SceneBuilder
 
 GLASS = Material(albedo=(1, 1, 1), transmission=1.0, ior=1.5,
                  roughness=0.05)

@@ -6,7 +6,7 @@ import struct
 
 import numpy as np
 
-from gdpathtracing_tpu.scene.gltfloader import GLTF, load_gltf_scene
+from gdpathtracing.scene.gltfloader import GLTF, load_gltf_scene
 
 
 def _make_gltf_doc(binary: bytes, embed: bool):

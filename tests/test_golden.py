@@ -3,7 +3,7 @@
 paths most at risk during perf surgery:
 
   cornell_16  — BRUTE oracle transport (the original round-1 golden)
-  pallas_16   — PALLAS rows-kernel numerics end-to-end (interpret mode)
+  pallas_16   — PALLAS kernel numerics end-to-end (interpret mode)
   nee_16      — NEE + MIS transport (UNIT backend)
   glass_16    — dielectric transmission (UNIT backend)
 
@@ -15,21 +15,21 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from gdpathtracing_tpu.config import Jitter, RenderConfig, Traversal
-from gdpathtracing_tpu.render.renderer import render_radiance
-from gdpathtracing_tpu.scene.demo import (build_cornell_simple,
+from gdpathtracing.config import Jitter, RenderConfig, Traversal
+from gdpathtracing.render.renderer import render_radiance
+from gdpathtracing.scene.demo import (build_cornell_simple,
                                           build_demo_scene, demo_camera)
 
 DATA = Path(__file__).parent / "data"
 
 
 def _glass_scene():
-    from gdpathtracing_tpu.scene.materials import Material
-    from gdpathtracing_tpu.scene.primitives import uv_sphere
-    from gdpathtracing_tpu.scene.demo import (BOX_GREEN, BOX_GREY, BOX_RED,
+    from gdpathtracing.scene.materials import Material
+    from gdpathtracing.scene.primitives import uv_sphere
+    from gdpathtracing.scene.demo import (BOX_GREEN, BOX_GREY, BOX_RED,
                                               LIGHT_MAT, _affine)
-    from gdpathtracing_tpu.scene.primitives import cornell_box, plane_mesh
-    from gdpathtracing_tpu.scene.scene import SceneBuilder
+    from gdpathtracing.scene.primitives import cornell_box, plane_mesh
+    from gdpathtracing.scene.scene import SceneBuilder
     glass = Material(albedo=(1.0, 0.9, 0.9), transmission=1.0, ior=1.5,
                      roughness=0.05)
     b = SceneBuilder()
@@ -59,7 +59,7 @@ CASES = {
                                        sphere_detail=6),
         config=RenderConfig(bounces=3, spp=2, traversal=Traversal.PALLAS,
                             jitter=Jitter.NONE),
-        file="golden_pallas_16.npz", interpret=True),
+        file="golden_pallas_16.npz"),
     "nee_16": dict(
         scene=lambda: build_demo_scene(texture_resolution=8,
                                        sphere_detail=6),
@@ -75,17 +75,9 @@ CASES = {
 
 
 def _render(case):
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    old = ip._FORCE_INTERPRET
-    if case.get("interpret"):
-        ip._FORCE_INTERPRET = True
-    try:
-        scene = case["scene"]()
-        cam = demo_camera(16, 16)
-        return np.asarray(
-            render_radiance(scene, cam, case["config"], 0).radiance)
-    finally:
-        ip._FORCE_INTERPRET = old
+    scene = case["scene"]()
+    cam = demo_camera(16, 16)
+    return np.asarray(render_radiance(scene, cam, case["config"], 0).radiance)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

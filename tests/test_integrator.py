@@ -4,9 +4,9 @@ non-trivial image, wall color bleeding, brute/BVH agreement, depth AOV."""
 import numpy as np
 import jax.numpy as jnp
 
-from gdpathtracing_tpu.config import Jitter, RenderConfig, Traversal
-from gdpathtracing_tpu.render.renderer import render_radiance
-from gdpathtracing_tpu.scene.demo import (build_cornell_simple,
+from gdpathtracing.config import Jitter, RenderConfig, Traversal
+from gdpathtracing.render.renderer import render_radiance
+from gdpathtracing.scene.demo import (build_cornell_simple,
                                           build_demo_scene, demo_camera)
 
 RES = 64
@@ -92,7 +92,7 @@ def test_emissive_sphere_glows():
 
 
 def test_russian_roulette_unbiased_and_shorter():
-    """rr_start > 0 (VERDICT r1 item 10): expected radiance unchanged
+    """rr_start > 0: expected radiance unchanged
     (statistically), expected path length strictly shorter. Throughput-
     proportional survival from bounce rr_start on, 1/p compensation."""
     scene = build_cornell_simple()

@@ -4,12 +4,12 @@ traversal equivalence on random rays (SURVEY.md §4c)."""
 import numpy as np
 import jax.numpy as jnp
 
-from gdpathtracing_tpu.core.vec import Vec3
-from gdpathtracing_tpu.render.intersect import (intersect_aabb,
+from gdpathtracing.core.vec import Vec3
+from gdpathtracing.render.intersect import (intersect_aabb,
                                                 moller_trumbore, trace_brute)
-from gdpathtracing_tpu.render.traverse import trace_bvh
-from gdpathtracing_tpu.render.types import Ray
-from gdpathtracing_tpu.scene.demo import build_demo_scene
+from gdpathtracing.render.traverse import trace_bvh
+from gdpathtracing.render.types import Ray
+from gdpathtracing.scene.demo import build_demo_scene
 
 
 def _ray(o, d):
@@ -114,7 +114,7 @@ def test_bvh_active_mask():
 def test_unit_matches_brute_oracle():
     scene = build_demo_scene(texture_resolution=8, sphere_detail=6, geometry="sphere")
     ray = _random_rays(512, seed=3)
-    from gdpathtracing_tpu.render.intersect import trace_unit
+    from gdpathtracing.render.intersect import trace_unit
     brute = trace_brute(scene, ray)
     unit = trace_unit(scene, ray)
     bt, ut = np.asarray(brute.t), np.asarray(unit.t)
@@ -133,11 +133,11 @@ def test_unit_matches_brute_oracle():
 
 
 def test_pallas_interpret_matches_brute_oracle():
-    from gdpathtracing_tpu.ops.intersect_pallas import trace_pallas
+    from gdpathtracing.ops.intersect_pallas import trace_pallas
     scene = build_demo_scene(texture_resolution=8, sphere_detail=6, geometry="sphere")
     ray = _random_rays(300, seed=5)
     brute = trace_brute(scene, ray)
-    pal = trace_pallas(scene, ray, interpret=True)
+    pal = trace_pallas(scene, ray)
     bt, pt = np.asarray(brute.t), np.asarray(pal.t)
     assert ((bt < 1e8) == (pt < 1e8)).mean() > 0.998
     both = (bt < 1e8) & (pt < 1e8)
@@ -150,17 +150,17 @@ def test_pallas_interpret_matches_brute_oracle():
 
 
 def test_pallas_superchunk_matches_brute_oracle():
-    """The two-level superchunk kernel (scenes with >16 chunks) must agree
-    with the brute-force oracle, including across superchunk boundaries."""
-    from gdpathtracing_tpu.ops.intersect_pallas import (prepare_trace_inputs,
-                                                        trace_pallas)
-    from gdpathtracing_tpu.scene.demo import build_sphere_grid
+    """The two-level loop over several superchunks must agree with the
+    brute-force oracle, including across superchunk boundaries."""
+    from gdpathtracing.ops.intersect_pallas import (prepare_trace_inputs,
+                                                    trace_pallas)
+    from gdpathtracing.scene.demo import build_sphere_grid
     scene = build_sphere_grid(n=4, sphere_detail=12)
     prep = prepare_trace_inputs(scene)
-    assert prep.superchunks, scene.isect_mu.shape  # must exercise sc path
+    assert prep.sb.shape[1] > 1, prep.sb.shape  # several superchunks
     ray = _random_rays(300, seed=11)
     brute = trace_brute(scene, ray)
-    pal = trace_pallas(scene, ray, interpret=True, prep=prep)
+    pal = trace_pallas(scene, ray, prep=prep)
     bt, pt = np.asarray(brute.t), np.asarray(pal.t)
     assert ((bt < 1e8) == (pt < 1e8)).mean() > 0.998
     both = (bt < 1e8) & (pt < 1e8)
@@ -172,17 +172,15 @@ def test_pallas_superchunk_matches_brute_oracle():
                        atol=2e-3)
 
 
-def test_octant_sort_is_transparent(monkeypatch):
+def test_octant_sort_is_transparent():
     """Ray sorting must be invisible: per-ray math is order-independent,
     so a sorted render bit-matches the unsorted one after the final
     unsort scatter."""
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    from gdpathtracing_tpu.config import Jitter, RenderConfig, Traversal
-    from gdpathtracing_tpu.render.renderer import render_radiance
-    from gdpathtracing_tpu.scene.demo import build_sphere_grid, grid_camera
-    monkeypatch.setattr(ip, "_FORCE_INTERPRET", True)
+    from gdpathtracing.config import Jitter, RenderConfig, Traversal
+    from gdpathtracing.render.renderer import render_radiance
+    from gdpathtracing.scene.demo import build_sphere_grid, grid_camera
     scene = build_sphere_grid(n=4, sphere_detail=12)
-    assert scene.isect_mu.shape[1] > 16 * 256  # superchunk + auto-sort
+    assert scene.isect_mu.shape[1] > 16 * 256  # several superchunks
     cam = grid_camera(16, 12, n=4)
     base = dict(bounces=2, spp=1, jitter=Jitter.NONE,
                 traversal=Traversal.PALLAS)
@@ -197,18 +195,16 @@ def test_octant_sort_is_transparent(monkeypatch):
                                   np.asarray(b.segments))
 
 
-def test_wavefront_compaction_is_transparent(monkeypatch):
-    """Survivor compaction on the wavefront-PALLAS path (VERDICT r2
-    item 3: config.compact_rays with sort_rays off — stable cumsum
-    partition by `active`) must be invisible in the per-ray results:
+def test_wavefront_compaction_is_transparent():
+    """Survivor compaction on the wavefront-PALLAS path (config.compact_rays
+    with sort_rays off — stable cumsum partition by `active`) must be
+    invisible in the per-ray results:
     radiance/depth/segments bit-match the uncompacted render after the
     final unsort scatter. (steps may differ: block composition changes
     which chunks a block collectively sweeps.)"""
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    from gdpathtracing_tpu.config import Jitter, RenderConfig, Traversal
-    from gdpathtracing_tpu.render.renderer import render_radiance
-    from gdpathtracing_tpu.scene.demo import build_sphere_grid, grid_camera
-    monkeypatch.setattr(ip, "_FORCE_INTERPRET", True)
+    from gdpathtracing.config import Jitter, RenderConfig, Traversal
+    from gdpathtracing.render.renderer import render_radiance
+    from gdpathtracing.scene.demo import build_sphere_grid, grid_camera
     scene = build_sphere_grid(n=4, sphere_detail=12)
     cam = grid_camera(48, 32, n=4)  # several blocks → real tail parking
     base = dict(bounces=3, spp=1, jitter=Jitter.NONE,
@@ -224,17 +220,14 @@ def test_wavefront_compaction_is_transparent(monkeypatch):
                                   np.asarray(b.segments))
 
 
-def test_pallas_render_matches_unit_end_to_end(monkeypatch):
-    """End-to-end guard on the packed rows (materials, NEE pdf term,
-    emitter normal — build_trace_table rows 15-33) and on
-    shading_from_rows/light_pdf_from_rows: a full PALLAS render must match
-    the UNIT render, with and without NEE. The per-hit oracle tests only
-    check t/tri/u/v/front; a layout bug in the rows would pass them."""
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    from gdpathtracing_tpu.config import Jitter, RenderConfig, Traversal
-    from gdpathtracing_tpu.render.renderer import render_radiance
-    from gdpathtracing_tpu.scene.demo import build_demo_scene, demo_camera
-    monkeypatch.setattr(ip, "_FORCE_INTERPRET", True)
+def test_pallas_render_matches_unit_end_to_end():
+    """End-to-end guard on the kernel epilogue (eidx → tri/inst/u/v/front,
+    the NEE pdf by eidx): a full PALLAS render must match the UNIT render,
+    with and without NEE. The per-hit oracle tests only check
+    t/tri/u/v/front; a wrong eidx mapping would pass them."""
+    from gdpathtracing.config import Jitter, RenderConfig, Traversal
+    from gdpathtracing.render.renderer import render_radiance
+    from gdpathtracing.scene.demo import build_demo_scene, demo_camera
     scene = build_demo_scene(texture_resolution=8, sphere_detail=6, geometry="sphere")
     cam = demo_camera(24, 16)
     for nee in (False, True):
@@ -250,29 +243,29 @@ def test_pallas_render_matches_unit_end_to_end(monkeypatch):
                                       np.asarray(unit.segments))
 
 
-def test_pallas_steps_aov_has_structure(monkeypatch):
-    """Row 45 of the packed output counts triangles actually swept per ray
-    (chunks whose slab test passed × BT) — the DEBUG_STEPS heatmap analog
-    (main.glsl:358-361). It must be bounded by the full sweep and show
-    per-ray structure (round 1 returned the constant E for every ray)."""
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
+def test_pallas_steps_aov_has_structure():
+    """The kernel's steps output counts triangles actually swept per ray
+    (chunks whose slab test passed × CHUNK) — the DEBUG_STEPS heatmap
+    analog (main.glsl:358-361). It must be bounded by the full sweep and
+    show per-ray structure, not the constant E."""
+    import gdpathtracing.ops.intersect_pallas as ip
     scene = build_demo_scene(texture_resolution=8, sphere_detail=16, geometry="sphere")
     e = scene.isect_mu.shape[1]
-    assert e // ip.BT >= 4  # needs several chunks for structure
+    assert e // ip.CHUNK >= 4  # needs several chunks for structure
     ray = _random_rays(512, seed=7)
-    pal = ip.trace_pallas(scene, ray, interpret=True)
+    pal = ip.trace_pallas(scene, ray)
     steps = np.asarray(pal.steps)
     assert (steps >= 0).all() and (steps <= e).all()
     assert steps.min() < steps.max()  # not a constant
     hit = np.asarray(pal.t) < 1e8
-    assert (steps[hit] >= ip.BT).all()  # a hit costs at least its chunk
+    assert (steps[hit] >= ip.CHUNK).all()  # a hit costs at least its chunk
 
 
 def test_fast_shading_matches_classic():
     """Packed-row shading (eidx path) must reproduce the classic
     multi-gather shading exactly on unit-backend hits."""
-    from gdpathtracing_tpu.render.intersect import trace_unit
-    from gdpathtracing_tpu.render.shading import (get_shading_data,
+    from gdpathtracing.render.intersect import trace_unit
+    from gdpathtracing.render.shading import (get_shading_data,
                                                   get_shading_data_fast)
     scene = build_demo_scene(texture_resolution=8, sphere_detail=6, geometry="sphere")
     ray = _random_rays(256, seed=9)
@@ -289,32 +282,3 @@ def test_fast_shading_matches_classic():
                        np.asarray(fast.roughness)[m])
     assert np.allclose(np.asarray(classic.lambert_out)[m],
                        np.asarray(fast.lambert_out)[m], atol=1e-5)
-
-
-def test_sc_lite_matches_rows_kernel(monkeypatch):
-    """The lite superchunk kernel (t/idx only + XLA gather epilogue —
-    the big-scene default) must report the same winners as the rows
-    variant: identical t/eidx/tri/inst, u/v equal to the recompute's
-    fp association."""
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    from gdpathtracing_tpu.scene.demo import build_sphere_grid
-    scene = build_sphere_grid(n=4, sphere_detail=12)
-    prep = ip.prepare_trace_inputs(scene)
-    assert prep.superchunks
-    ray = _random_rays(400, seed=23)
-    monkeypatch.setattr(ip, "_SC_LITE", True)
-    lite = ip.trace_pallas(scene, ray, interpret=True, prep=prep)
-    monkeypatch.setattr(ip, "_SC_LITE", False)
-    rows = ip.trace_pallas(scene, ray, interpret=True, prep=prep)
-    np.testing.assert_array_equal(np.asarray(lite.t), np.asarray(rows.t))
-    np.testing.assert_array_equal(np.asarray(lite.eidx),
-                                  np.asarray(rows.eidx))
-    np.testing.assert_array_equal(np.asarray(lite.tri),
-                                  np.asarray(rows.tri))
-    np.testing.assert_array_equal(np.asarray(lite.inst),
-                                  np.asarray(rows.inst))
-    hit = np.asarray(lite.t) < 1e8
-    np.testing.assert_allclose(np.asarray(lite.u)[hit],
-                               np.asarray(rows.u)[hit], atol=1e-4)
-    np.testing.assert_allclose(np.asarray(lite.v)[hit],
-                               np.asarray(rows.v)[hit], atol=1e-4)

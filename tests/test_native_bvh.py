@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from gdpathtracing_tpu.bvh import native
-from gdpathtracing_tpu.bvh.blas import BLASBuilder, Surface, validate_blas
+from gdpathtracing.bvh import native
+from gdpathtracing.bvh.blas import BLASBuilder, Surface, validate_blas
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="no native toolchain")

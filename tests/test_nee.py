@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gdpathtracing_tpu.config import Jitter, RenderConfig, Traversal
-from gdpathtracing_tpu.render.renderer import render_radiance
-from gdpathtracing_tpu.scene.demo import build_cornell_simple, demo_camera
+from gdpathtracing.config import Jitter, RenderConfig, Traversal
+from gdpathtracing.render.renderer import render_radiance
+from gdpathtracing.scene.demo import build_cornell_simple, demo_camera
 
 BASE = RenderConfig(bounces=2, spp=8, traversal=Traversal.UNIT,
                     jitter=Jitter.NONE)
@@ -30,7 +30,7 @@ def _mean_images():
 def test_scene_light_table():
     scene = build_cornell_simple()
     assert scene.n_lights == 2  # the emissive plane's two triangles
-    from gdpathtracing_tpu.render.lights import build_light_table
+    from gdpathtracing.render.lights import build_light_table
     t = build_light_table(scene)
     area = np.asarray(t.area)
     assert np.allclose(area, 2.0, atol=1e-4)  # 2x2 plane → 2 tris of area 2
@@ -64,107 +64,3 @@ def test_nee_matches_brdf_expectation_with_less_noise():
     var_off = frames(False).var(axis=0)[box].mean()
     var_on = frames(True).var(axis=0)[box].mean()
     assert var_on < 0.5 * var_off, (var_on, var_off)
-
-
-def test_fused_nee_bit_matches_separate_dispatches(monkeypatch):
-    """The deferred-shadow fused kernel path (trace_occlude_pallas, one
-    dispatch per bounce + trailing flush) must match the separate
-    trace + occluded_pallas per-bounce path it replaces — same RNG
-    stream, same accumulation order (emission_i, direct_i,
-    emission_{i+1}, ...). Radiance compares at ≤1-ulp tolerance (the two
-    jit graphs differ in shape, so XLA's FMA-contraction choices differ
-    even though every source-level op is identical); depth and the
-    integer segments count must be exactly equal."""
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    from gdpathtracing_tpu.render import integrator as integ
-    from gdpathtracing_tpu.render.renderer import render_radiance
-    from gdpathtracing_tpu.scene.demo import build_demo_scene
-
-    monkeypatch.setattr(ip, "_FORCE_INTERPRET", True)
-    scene = build_demo_scene(texture_resolution=8, sphere_detail=6)
-    cam = demo_camera(24, 16)
-    cfg = RenderConfig(bounces=3, spp=1, traversal=Traversal.PALLAS,
-                       nee=True, jitter=Jitter.NONE)
-
-    monkeypatch.setattr(integ, "_FORCE_UNFUSED_NEE", False)
-    fused = render_radiance(scene, cam, cfg, 7)
-    monkeypatch.setattr(integ, "_FORCE_UNFUSED_NEE", True)
-    sep = render_radiance(scene, cam, cfg, 7)
-
-    np.testing.assert_allclose(np.asarray(fused.radiance),
-                               np.asarray(sep.radiance),
-                               rtol=3e-7, atol=1e-7)
-    np.testing.assert_array_equal(np.asarray(fused.depth),
-                                  np.asarray(sep.depth))
-    np.testing.assert_array_equal(np.asarray(fused.segments),
-                                  np.asarray(sep.segments))
-
-
-def test_trace_occlude_pallas_unit():
-    """Kernel-level contract: the fused dispatch's two outputs equal
-    trace_pallas and occluded_pallas run separately (same rays)."""
-    import jax
-    import jax.numpy as jnp
-
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    from gdpathtracing_tpu.core.vec import Vec3
-    from gdpathtracing_tpu.render.types import Ray
-    from gdpathtracing_tpu.scene.demo import build_demo_scene
-
-    scene = build_demo_scene(texture_resolution=8, sphere_detail=6)
-    n = 512
-    k = jax.random.split(jax.random.PRNGKey(3), 7)
-    o = Vec3(*(jax.random.uniform(k[i], (n,), minval=-3.0, maxval=3.0)
-               for i in range(3)))
-    d_raw = [jax.random.normal(k[3 + i], (n,)) for i in range(3)]
-    norm = jnp.sqrt(sum(x * x for x in d_raw)) + 1e-9
-    d = Vec3(*(x / norm for x in d_raw))
-    active = jax.random.uniform(k[6], (n,)) > 0.3
-    # Shadow set: reversed rays with finite tmax, a different active mask.
-    sh = Ray(Vec3(o.y, o.z, o.x), Vec3(-d.x, d.y, -d.z))
-    sh_tmax = jnp.full((n,), 4.0)
-    sh_active = jax.random.uniform(k[0], (n,)) > 0.5
-
-    hit_f, occ_f = ip.trace_occlude_pallas(
-        scene, Ray(o, d), active, sh, sh_tmax, sh_active, interpret=True)
-    hit_s = ip.trace_pallas(scene, Ray(o, d), active, interpret=True)
-    occ_s = ip.occluded_pallas(scene, sh, sh_tmax, sh_active,
-                               interpret=True)
-
-    np.testing.assert_array_equal(np.asarray(hit_f.t), np.asarray(hit_s.t))
-    np.testing.assert_array_equal(np.asarray(hit_f.eidx),
-                                  np.asarray(hit_s.eidx))
-    np.testing.assert_array_equal(np.asarray(hit_f.u), np.asarray(hit_s.u))
-    np.testing.assert_array_equal(np.asarray(occ_f), np.asarray(occ_s))
-
-
-def test_fused_nee_with_compaction_matches(monkeypatch):
-    """Compaction permutes the pending-shadow carry (origin, direction,
-    tmax, mask, contribution) alongside the wavefront; the render must
-    match the uncompacted fused render exactly (per-ray results are
-    permutation-invariant, and both graphs run the same fused kernel)."""
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    from gdpathtracing_tpu.render.renderer import render_radiance
-    from gdpathtracing_tpu.scene.demo import build_demo_scene
-
-    monkeypatch.setattr(ip, "_FORCE_INTERPRET", True)
-    scene = build_demo_scene(texture_resolution=8, sphere_detail=6)
-    cam = demo_camera(32, 16)  # 512 rays = 4 groups of 128, 2 blocks
-    base = dict(bounces=3, spp=1, traversal=Traversal.PALLAS, nee=True,
-                jitter=Jitter.NONE)
-    a = render_radiance(scene, cam,
-                        RenderConfig(compact_rays=True, **base), 5)
-    b = render_radiance(scene, cam,
-                        RenderConfig(compact_rays=False, **base), 5)
-    # Radiance: ulp-level, not bit-level — the two configs are different
-    # XLA graphs, and the compiler's FMA-contraction choices in the
-    # per-ray radiance chain may differ by 1 ulp between them (the hits
-    # themselves are exact: depth/segments assert bitwise below, and the
-    # kernels' lexicographic (t, eidx) winner is visit-order independent).
-    np.testing.assert_allclose(np.asarray(a.radiance),
-                               np.asarray(b.radiance),
-                               rtol=3e-7, atol=3e-7)
-    np.testing.assert_array_equal(np.asarray(a.depth),
-                                  np.asarray(b.depth))
-    np.testing.assert_array_equal(np.asarray(a.segments),
-                                  np.asarray(b.segments))

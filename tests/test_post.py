@@ -4,11 +4,11 @@ reprojection identity case."""
 import numpy as np
 import jax.numpy as jnp
 
-from gdpathtracing_tpu.post.progressive import (progressive_init,
+from gdpathtracing.post.progressive import (progressive_init,
                                                 progressive_update)
-from gdpathtracing_tpu.post.temporal import (nonlinear_depth, temporal_init,
+from gdpathtracing.post.temporal import (nonlinear_depth, temporal_init,
                                              temporal_update)
-from gdpathtracing_tpu.post.tonemap import aces_film
+from gdpathtracing.post.tonemap import aces_film
 
 
 def test_aces_range_and_monotone():
@@ -67,8 +67,8 @@ def test_nonlinear_depth_reversed_z():
 
 
 def test_display_transform_modes():
-    from gdpathtracing_tpu.config import RenderConfig, Tonemap
-    from gdpathtracing_tpu.post.display import display_transform
+    from gdpathtracing.config import RenderConfig, Tonemap
+    from gdpathtracing.post.display import display_transform
     img = jnp.full((8, 8, 3), 0.5, jnp.float32)
     aces = display_transform(img, RenderConfig())
     lin = display_transform(img, RenderConfig(tonemap=Tonemap.LINEAR))
@@ -83,8 +83,8 @@ def test_display_transform_modes():
 
 
 def test_bloom_spreads_highlights():
-    from gdpathtracing_tpu.config import RenderConfig
-    from gdpathtracing_tpu.post.display import bloom
+    from gdpathtracing.config import RenderConfig
+    from gdpathtracing.post.display import bloom
     img = np.zeros((17, 17, 3), np.float32)
     img[8, 8] = 20.0
     out = np.asarray(bloom(jnp.asarray(img), threshold=1.0, strength=0.5,
@@ -95,7 +95,7 @@ def test_bloom_spreads_highlights():
 
 
 def test_atrous_denoiser_reduces_noise_keeps_edges():
-    from gdpathtracing_tpu.post.denoise import atrous_denoise
+    from gdpathtracing.post.denoise import atrous_denoise
     rs = np.random.RandomState(0)
     h = w = 32
     # two flat regions separated by a depth+normal edge, plus noise

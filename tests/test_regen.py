@@ -2,19 +2,18 @@
 
 Each path's RNG stream is keyed by (pixel, sample, frame) and every
 per-segment op matches render/integrator.py, so the regenerated frame
-must reproduce the standard frame exactly (BRUTE/UNIT backends; the
-PALLAS interpret-mode check allows visit-order tie-breaks, which do not
-occur on these scenes)."""
+must reproduce the standard frame exactly (the PALLAS kernel's winner
+does not depend on block composition)."""
 
 from __future__ import annotations
 
 import numpy as np
 import pytest
 
-from gdpathtracing_tpu.config import RenderConfig, Traversal
-from gdpathtracing_tpu.render.camera import Camera
-from gdpathtracing_tpu.render.renderer import render_radiance
-from gdpathtracing_tpu.scene.demo import build_demo_scene, demo_camera
+from gdpathtracing.config import RenderConfig, Traversal
+from gdpathtracing.render.camera import Camera
+from gdpathtracing.render.renderer import render_radiance
+from gdpathtracing.scene.demo import build_demo_scene, demo_camera
 
 W, H = 40, 24
 
@@ -66,26 +65,38 @@ def test_regen_rr(scene):
 
 
 def test_regen_pallas_interpret(scene):
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    ip._FORCE_INTERPRET = True
-    try:
-        _compare(scene, RenderConfig(bounces=3, traversal=Traversal.PALLAS,
-                                     tile_rays=1024, regen_wavefront=1024))
-    finally:
-        ip._FORCE_INTERPRET = False
+    _compare(scene, RenderConfig(bounces=3, traversal=Traversal.PALLAS,
+                                 tile_rays=1024, regen_wavefront=1024))
 
 
-def test_regen_nee_fused_pallas(scene):
-    # PALLAS + NEE: both sides use the fused deferred-shadow path; regen
-    # resolves pendings across lane regeneration (late scatter-add).
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    ip._FORCE_INTERPRET = True
-    try:
-        _compare(scene, RenderConfig(bounces=3, traversal=Traversal.PALLAS,
-                                     nee=True, regen_fuse_nee=True,
-                                     tile_rays=1024, regen_wavefront=1024))
-    finally:
-        ip._FORCE_INTERPRET = False
+def test_regen_nee_pallas(scene):
+    # PALLAS + NEE: the regen loop resolves each shadow ray with the
+    # any-hit kernel in the same iteration, as the standard loop does.
+    _compare(scene, RenderConfig(bounces=3, traversal=Traversal.PALLAS,
+                                 nee=True, tile_rays=1024,
+                                 regen_wavefront=1024))
+
+
+def test_regen_superchunk_pallas():
+    """A scene of several superchunks (the kernel's two-level loop and
+    per-block queue) through regen must reproduce the standard frame.
+    On this scene XLA contracts the unit-space dot products of the two
+    programs differently (UNIT shows the same few-ulp depth differences),
+    so radiance is compared at 1e-4; the traced segments must agree."""
+    from gdpathtracing.scene.demo import build_sphere_grid, grid_camera
+    gscene = build_sphere_grid(n=4)
+    cam = grid_camera(40, 24, n=4)
+    cfg = RenderConfig(bounces=3, traversal=Traversal.PALLAS,
+                       regen_wavefront=512)
+    ref = render_radiance(gscene, cam, cfg.replace(regen=False), 3)
+    got = render_radiance(gscene, cam, cfg.replace(regen=True), 3)
+    np.testing.assert_allclose(np.asarray(got.radiance),
+                               np.asarray(ref.radiance), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(np.asarray(got.depth), np.asarray(ref.depth),
+                               rtol=1e-5)
+    np.testing.assert_array_equal(np.asarray(got.segments),
+                                  np.asarray(ref.segments))
 
 
 def test_regen_no_lane_compaction(scene):
@@ -95,28 +106,12 @@ def test_regen_no_lane_compaction(scene):
                                  compact_rays=False, tile_rays=512, regen_wavefront=512))
 
 
-def test_regen_nee_fused_no_compaction(scene):
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    ip._FORCE_INTERPRET = True
-    try:
-        _compare(scene, RenderConfig(bounces=3, traversal=Traversal.PALLAS,
-                                     nee=True, compact_rays=False,
-                                     regen_fuse_nee=True,
-                                     tile_rays=1024, regen_wavefront=1024))
-    finally:
-        ip._FORCE_INTERPRET = False
-
-
 def test_regen_sorted_lanes(scene):
     # sort_rays=True switches the lane permutation to the Morton+octant
     # key (the superchunk-scene mode); transport must be unchanged.
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    ip._FORCE_INTERPRET = True
-    try:
-        _compare(scene, RenderConfig(bounces=3, traversal=Traversal.PALLAS,
-                                     sort_rays=True, tile_rays=1024, regen_wavefront=1024))
-    finally:
-        ip._FORCE_INTERPRET = False
+    _compare(scene, RenderConfig(bounces=3, traversal=Traversal.PALLAS,
+                                 sort_rays=True, tile_rays=1024,
+                                 regen_wavefront=1024))
 
 
 def test_regen_steps_total(scene):
@@ -131,94 +126,33 @@ def test_regen_steps_total(scene):
 
 
 def test_regen_log_retirement_bit_matches_scatter(scene):
-    """regen v4 (contiguous retirement log, the default) must produce
-    BIT-identical AOVs to the v3 column-scatter retirement in every
-    mode combination — the log only changes where retired values are
-    written, never the values (round-5; also guards the TPU
-    denormal-pid hazard class: pids ride the f32 log as exact value
-    casts, not bitcasts)."""
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    from gdpathtracing_tpu.render.regen import render_radiance_regen
-    ip._FORCE_INTERPRET = True
-    try:
-        cam = demo_camera(W, H)
-        for nee, sort in ((False, True), (True, True), (True, False)):
-            cfg = RenderConfig(bounces=3, traversal=Traversal.PALLAS,
-                               nee=nee, sort_rays=sort, regen=True,
-                               regen_wavefront=512)
-            aL = render_radiance_regen(
-                scene, cam, cfg.replace(regen_retire="log"), 3)
-            aS = render_radiance_regen(
-                scene, cam, cfg.replace(regen_retire="scatter"), 3)
-            for k in ("radiance", "depth", "segments", "steps", "normal"):
-                np.testing.assert_array_equal(
-                    np.asarray(getattr(aL, k)), np.asarray(getattr(aS, k)),
-                    err_msg=f"nee={nee} sort={sort} aov={k}")
-    finally:
-        ip._FORCE_INTERPRET = False
-
-
-def test_regen_march_superchunk_oracle():
-    """Frontier-march traversal (round 5b): on a superchunk scene the
-    march regen frame must reproduce the standard integrator EXACTLY —
-    same per-path RNG stream (draws commit only when a segment
-    resolves), same lexicographic traversal winner (march sweeps are
-    idempotent/sound for any schedule), same retirement."""
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    from gdpathtracing_tpu.scene.demo import build_sphere_grid, grid_camera
-    gscene = build_sphere_grid(n=4)
-    cam = grid_camera(40, 24, n=4)
-    ip._FORCE_INTERPRET = True
-    try:
-        cfg = RenderConfig(bounces=3, traversal=Traversal.PALLAS)
-        ref = render_radiance(gscene, cam, cfg.replace(regen=False), 3)
-        for ql in (1, 2, 4):
-            got = render_radiance(
-                gscene, cam,
-                cfg.replace(regen=True, regen_march=True,
-                            regen_march_ql=ql), 3)
-            np.testing.assert_allclose(np.asarray(got.radiance),
-                                       np.asarray(ref.radiance),
-                                       rtol=1e-6, atol=1e-6,
-                                       err_msg=f"ql={ql}")
-            np.testing.assert_array_equal(np.asarray(got.segments),
-                                          np.asarray(ref.segments))
-            np.testing.assert_allclose(np.asarray(got.depth),
-                                       np.asarray(ref.depth), rtol=1e-6)
-    finally:
-        ip._FORCE_INTERPRET = False
-
-
-def test_regen_march_matches_no_march():
-    """March vs one-shot sc traversal inside regen: bit-compatible AOVs
-    (both reduce to the same lexicographic winners + identical
-    transport arithmetic)."""
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    from gdpathtracing_tpu.scene.demo import build_sphere_grid, grid_camera
-    gscene = build_sphere_grid(n=4)
-    cam = grid_camera(40, 24, n=4)
-    ip._FORCE_INTERPRET = True
-    try:
+    """The contiguous retirement log (the default) must produce
+    BIT-identical AOVs to the column-scatter retirement in every mode
+    combination — the log only changes where retired values are written,
+    never the values (pids ride the f32 log as exact value casts, not
+    bitcasts, so no denormal can be flushed)."""
+    from gdpathtracing.render.regen import render_radiance_regen
+    cam = demo_camera(W, H)
+    for nee, sort in ((False, True), (True, True), (True, False)):
         cfg = RenderConfig(bounces=3, traversal=Traversal.PALLAS,
-                           nee=True, regen=True)
-        a = render_radiance(gscene, cam, cfg.replace(regen_march=True), 2)
-        b = render_radiance(gscene, cam, cfg.replace(regen_march=False), 2)
-        np.testing.assert_allclose(np.asarray(a.radiance),
-                                   np.asarray(b.radiance),
-                                   rtol=1e-6, atol=1e-6)
-        np.testing.assert_array_equal(np.asarray(a.segments),
-                                      np.asarray(b.segments))
-    finally:
-        ip._FORCE_INTERPRET = False
+                           nee=nee, sort_rays=sort, regen=True,
+                           regen_wavefront=512)
+        aL = render_radiance_regen(
+            scene, cam, cfg.replace(regen_retire="log"), 3)
+        aS = render_radiance_regen(
+            scene, cam, cfg.replace(regen_retire="scatter"), 3)
+        for k in ("radiance", "depth", "segments", "steps", "normal"):
+            np.testing.assert_array_equal(
+                np.asarray(getattr(aL, k)), np.asarray(getattr(aS, k)),
+                err_msg=f"nee={nee} sort={sort} aov={k}")
 
 
 def test_regen_two_phase_drain(scene):
-    """Two-phase drain (round 5b): handing the sorted live prefix to a
+    """Two-phase drain: handing the sorted live prefix to a
     smaller second while_loop must not change any AOV (same bodies,
     same RNG streams, only the lane-buffer size differs)."""
     cam = demo_camera(W, H)
     for nee in (False, True):
-        # BRUTE path (fuse off) so the drain gate engages with nee too
         cfg = RenderConfig(bounces=3, traversal=Traversal.BRUTE, nee=nee,
                            regen=True, regen_wavefront=512)
         a = render_radiance(scene, cam,
@@ -229,26 +163,3 @@ def test_regen_two_phase_drain(scene):
             np.testing.assert_array_equal(
                 np.asarray(getattr(a, k)), np.asarray(getattr(b, k)),
                 err_msg=f"nee={nee} aov={k}")
-
-
-def test_regen_two_phase_drain_march():
-    """Drain + march together (the grid configuration)."""
-    import gdpathtracing_tpu.ops.intersect_pallas as ip
-    from gdpathtracing_tpu.scene.demo import build_sphere_grid, grid_camera
-    gscene = build_sphere_grid(n=4)
-    cam = grid_camera(40, 24, n=4)
-    ip._FORCE_INTERPRET = True
-    try:
-        cfg = RenderConfig(bounces=3, traversal=Traversal.PALLAS,
-                           regen=True, regen_march=True,
-                           regen_wavefront=512)
-        a = render_radiance(gscene, cam,
-                            cfg.replace(regen_drain=True,
-                                        regen_drain_wavefront=256), 2)
-        b = render_radiance(gscene, cam, cfg.replace(regen_drain=False), 2)
-        for k in ("radiance", "depth", "segments"):
-            np.testing.assert_array_equal(
-                np.asarray(getattr(a, k)), np.asarray(getattr(b, k)),
-                err_msg=f"aov={k}")
-    finally:
-        ip._FORCE_INTERPRET = False

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gdpathtracing_tpu.core import rng
+from gdpathtracing.core import rng
 
 M = 0xFFFFFFFF
 

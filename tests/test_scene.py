@@ -7,12 +7,12 @@ import tempfile
 import numpy as np
 import jax
 
-from gdpathtracing_tpu.scene.demo import build_demo_scene
-from gdpathtracing_tpu.scene.materials import Material
-from gdpathtracing_tpu.scene.objloader import load_obj
-from gdpathtracing_tpu.scene.primitives import (cornell_box, plane_mesh,
+from gdpathtracing.scene.demo import build_demo_scene
+from gdpathtracing.scene.materials import Material
+from gdpathtracing.scene.objloader import load_obj
+from gdpathtracing.scene.primitives import (cornell_box, plane_mesh,
                                                 uv_sphere)
-from gdpathtracing_tpu.scene.scene import SceneBuilder
+from gdpathtracing.scene.scene import SceneBuilder
 
 
 def test_demo_scene_shapes():
@@ -32,7 +32,7 @@ def test_demo_scene_reference_geometry():
     """Default demo geometry is the REAL reference demo (demo.tscn:69-93):
     cornell.obj (3 surfaces, 10 tris) + 2 instances of suzanne.obj
     (968 tris) sharing one BLAS, + the plane light."""
-    from gdpathtracing_tpu.scene.demo import load_demo_geometry
+    from gdpathtracing.scene.demo import load_demo_geometry
     cornell = load_demo_geometry("cornell")
     suzanne = load_demo_geometry("suzanne")
     assert len(cornell) == 3
@@ -156,10 +156,10 @@ def test_texture_array_assembly():
 
 def test_environment_map_sky():
     import jax.numpy as jnp
-    from gdpathtracing_tpu.core.vec import Vec3
-    from gdpathtracing_tpu.render.sky import sample_environment, sample_sky
-    from gdpathtracing_tpu.config import RenderConfig
-    from gdpathtracing_tpu.scene.primitives import plane_mesh
+    from gdpathtracing.core.vec import Vec3
+    from gdpathtracing.render.sky import sample_environment, sample_sky
+    from gdpathtracing.config import RenderConfig
+    from gdpathtracing.scene.primitives import plane_mesh
 
     env = np.zeros((4, 8, 3), np.float32)
     env[0] = [0, 0, 1]   # zenith blue
@@ -180,7 +180,7 @@ def test_environment_map_sky():
 
 
 def test_hdr_decoder(tmp_path):
-    from gdpathtracing_tpu.scene.hdr import load_hdr
+    from gdpathtracing.scene.hdr import load_hdr
     # flat (non-RLE) 2x2 .hdr file built by hand
     import struct
     rgbe = np.array([
@@ -200,10 +200,10 @@ def test_hdr_decoder(tmp_path):
 
 def test_metallic_roughness_texture():
     import jax.numpy as jnp
-    from gdpathtracing_tpu.render.intersect import trace_unit
-    from gdpathtracing_tpu.render.shading import get_shading_data
-    from gdpathtracing_tpu.render.types import Ray
-    from gdpathtracing_tpu.core.vec import Vec3
+    from gdpathtracing.render.intersect import trace_unit
+    from gdpathtracing.render.shading import get_shading_data
+    from gdpathtracing.render.types import Ray
+    from gdpathtracing.core.vec import Vec3
 
     # G=0.5 (roughness), B=1.0 (metallic)
     mr = np.zeros((4, 4, 3), np.float32)

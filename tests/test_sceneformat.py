@@ -9,7 +9,7 @@ from pathlib import Path
 
 import numpy as np
 
-from gdpathtracing_tpu.scene.sceneformat import (load_scene_file,
+from gdpathtracing.scene.sceneformat import (load_scene_file,
                                                  parse_transform)
 
 SCENE = {
@@ -75,7 +75,7 @@ def test_cli_render_and_info(tmp_path):
     code = f"""
 import jax
 jax.config.update('jax_platforms', 'cpu')
-from gdpathtracing_tpu.cli import main
+from gdpathtracing.cli import main
 main(['render', r'{p}', '--out', r'{out}', '--width', '32',
       '--height', '32', '--frames', '2', '--bounces', '2',
       '--traversal', 'unit'])
@@ -92,8 +92,8 @@ main(['info', r'{p}'])
 
 def test_png_texture_roundtrip(tmp_path):
     """write_png → _decode_png round trip, then into a textured scene."""
-    from gdpathtracing_tpu.cli import write_png
-    from gdpathtracing_tpu.scene.sceneformat import _decode_png
+    from gdpathtracing.cli import write_png
+    from gdpathtracing.scene.sceneformat import _decode_png
     rs = np.random.RandomState(0)
     img = rs.randint(0, 255, size=(16, 16, 3), dtype=np.uint8)
     p = tmp_path / "t.png"

@@ -1,28 +1,20 @@
 """Silhouette (visibility-discontinuity) gradients on the PALLAS fast
-path (VERDICT r3 item 5): soft-shadow visibility via the top-1-blocker
-kernel, and primary-hit silhouettes via the soft-primary relaxation —
-both FD-verified w.r.t. an instance translation."""
+path: soft-shadow visibility (the all-triangle product of
+intersect.occlusion_soft) and primary-hit silhouettes via the soft-primary
+relaxation — both FD-verified w.r.t. an instance translation."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import gdpathtracing_tpu.ops.intersect_pallas as ip
-from gdpathtracing_tpu.config import Jitter, RenderConfig, Traversal
-from gdpathtracing_tpu.render.camera import Camera
-from gdpathtracing_tpu.render.renderer import render_radiance
-from gdpathtracing_tpu.scene.dynamic import update_instance_transforms
-from gdpathtracing_tpu.scene.materials import Material
-from gdpathtracing_tpu.scene.primitives import plane_mesh
-from gdpathtracing_tpu.scene.scene import SceneBuilder
-
-
-@pytest.fixture(autouse=True)
-def _interpret():
-    ip._FORCE_INTERPRET = True
-    yield
-    ip._FORCE_INTERPRET = False
+from gdpathtracing.config import Jitter, RenderConfig, Traversal
+from gdpathtracing.render.camera import Camera
+from gdpathtracing.render.renderer import render_radiance
+from gdpathtracing.scene.dynamic import update_instance_transforms
+from gdpathtracing.scene.materials import Material
+from gdpathtracing.scene.primitives import plane_mesh
+from gdpathtracing.scene.scene import SceneBuilder
 
 
 def _affine(rows, origin):
@@ -32,7 +24,7 @@ def _affine(rows, origin):
     return m
 
 
-# ---- soft shadows through PALLAS (top-1 blocker kernel) ----
+# ---- soft shadows through PALLAS ----
 
 def _shadow_scene():
     b = SceneBuilder()
@@ -65,8 +57,8 @@ def _render_shadow(scene, cam, tx, traversal, soft):
 
 
 def test_pallas_soft_shadow_matches_unit_product():
-    # Single-blocker scene: the top-1 kernel equals the all-triangle
-    # product up to the blocker's own two-triangle seam.
+    # PALLAS soft shadows take the same all-triangle product as UNIT;
+    # only the differentiable recompute of the hits differs.
     scene, cam = _shadow_scene()
     a = np.asarray(_render_shadow(scene, cam, 0.1, Traversal.UNIT, 0.03))
     b = np.asarray(_render_shadow(scene, cam, 0.1, Traversal.PALLAS, 0.03))

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gdpathtracing_tpu.core.vec import Vec3, lerp, reflect, where
+from gdpathtracing.core.vec import Vec3, lerp, reflect, where
 
 
 def _v(arr):

@@ -7,13 +7,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gdpathtracing_tpu.config import Jitter, RenderConfig, Traversal
-from gdpathtracing_tpu.render.camera import Camera
-from gdpathtracing_tpu.render.renderer import render_radiance
-from gdpathtracing_tpu.scene.dynamic import update_instance_transforms
-from gdpathtracing_tpu.scene.materials import Material
-from gdpathtracing_tpu.scene.primitives import plane_mesh
-from gdpathtracing_tpu.scene.scene import SceneBuilder
+from gdpathtracing.config import Jitter, RenderConfig, Traversal
+from gdpathtracing.render.camera import Camera
+from gdpathtracing.render.renderer import render_radiance
+from gdpathtracing.scene.dynamic import update_instance_transforms
+from gdpathtracing.scene.materials import Material
+from gdpathtracing.scene.primitives import plane_mesh
+from gdpathtracing.scene.scene import SceneBuilder
 
 
 def _affine(rows, origin):
